@@ -1,7 +1,7 @@
-"""genrich-tpu: a TPU-native peak-calling engine for genomic enrichment assays.
+"""genrich-tpu: a JAX peak-calling engine for genomic enrichment assays.
 
 A from-scratch reimplementation of the capabilities of Genrich v0.6.2
-(reference: /root/reference/Genrich.c) designed for TPU hardware:
+(reference: Genrich.c) designed for an accelerator (an NVIDIA GPU):
 
 - host-side ingest turns SAM/BAM alignments into flat fragment-interval
   event arrays (``genrich_tpu.ingest``),

@@ -23,7 +23,8 @@ so the running pileup value at any base equals
 reconstructed in float32 exactly as getVal does.  This reduces the
 reference's O(genome) per-base sweeps (savePileupExpt Genrich.c:2168,
 savePileupCtrl 2052, calcFactor 1980) to an O(events log events)
-sort + cumulative-sum + gather program: the natural shape for a TPU.
+sort + cumulative-sum + gather program: the natural shape for an
+accelerator.
 
 Raw per-event contributions (derived from addFrac/subFrac):
 

@@ -4,14 +4,20 @@ Wraps native/libgenrich_ingest.so (SAM/BAM parsing, pair assembly,
 multimapper selection, PCR dedup, interval generation — the byte-level
 host pipeline).  The library produces per-chromosome event arrays and
 counters identical to the pure-Python ingest; tests assert equality.
-Builds on demand with make if the shared object is missing.
+
+The shared object is never committed: it is built from
+native/ingest.cpp with make at first use, and rebuilt whenever the
+sources' hash differs from the one recorded beside the binary.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -21,30 +27,111 @@ from ..params import Params
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SO = os.path.join(_REPO, "native", "libgenrich_ingest.so")
+NATIVE_DIR = os.path.join(_REPO, "native")
+SO_NAME = "libgenrich_ingest.so"
+_SOURCES = ("ingest.cpp", "Makefile")
+_STAMP = ".build.sha256"      # hash of the sources the .so was built from
 
 _lib = None
+_load_error: Optional["NativeUnavailable"] = None
 
 
-def available(build: bool = True) -> bool:
+class NativeUnavailable(RuntimeError):
+    """The native library could not be built or loaded."""
+
+
+def _source_hash(native_dir: str) -> str:
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        with open(os.path.join(native_dir, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def _is_current(native_dir: str, want: str) -> bool:
+    try:
+        with open(os.path.join(native_dir, _STAMP)) as f:
+            stamp = f.read().strip()
+    except OSError:
+        return False
+    return stamp == want and os.path.exists(
+        os.path.join(native_dir, SO_NAME))
+
+
+def build(native_dir: str = NATIVE_DIR) -> float:
+    """Build the library from source unless it is current.
+
+    Returns the seconds spent building (0.0 when the recorded source
+    hash already matches).  Concurrent callers (xdist workers, several
+    CLI processes) serialize on a file lock; the build goes to a
+    temporary name and is renamed into place, so no process ever loads
+    a half-written file.
+    """
+    want = _source_hash(native_dir)
+    if _is_current(native_dir, want):
+        return 0.0
+    with open(os.path.join(native_dir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _is_current(native_dir, want):
+            return 0.0      # another process built it while we waited
+        tmp = f".build.{os.getpid()}.so"
+        t0 = time.perf_counter()
+        try:
+            subprocess.run(["make", "-s", "-B", "-C", native_dir,
+                            f"TARGET={tmp}"],
+                           check=True, capture_output=True, text=True)
+            os.replace(os.path.join(native_dir, tmp),
+                       os.path.join(native_dir, SO_NAME))
+        except (OSError, subprocess.CalledProcessError) as exc:
+            detail = (getattr(exc, "stderr", "") or str(exc)).strip()
+            raise NativeUnavailable(
+                f"building {SO_NAME} failed: "
+                f"{(detail.splitlines() or [''])[-1]}") from exc
+        finally:
+            if os.path.exists(os.path.join(native_dir, tmp)):
+                os.unlink(os.path.join(native_dir, tmp))
+        stamp_tmp = os.path.join(native_dir, f".build.{os.getpid()}.sha")
+        with open(stamp_tmp, "w") as f:
+            f.write(want + "\n")
+        os.replace(stamp_tmp, os.path.join(native_dir, _STAMP))
+        return time.perf_counter() - t0
+
+
+def available() -> bool:
     """True if the native library is loadable (building if needed)."""
     try:
-        _load(build=build)
+        _load()
         return True
-    except Exception:
+    except NativeUnavailable:
         return False
 
 
-def _load(build: bool = True):
-    global _lib
+def _load():
+    """The loaded library; builds it first if missing or stale.
+
+    A failure is remembered, so callers that probe the library per
+    call (the numeric helpers below) do not retry a failed build."""
+    global _lib, _load_error
     if _lib is not None:
         return _lib
-    if not os.path.exists(_SO):
-        if not build:
-            raise FileNotFoundError(_SO)
-        subprocess.run(["make", "-C", os.path.dirname(_SO)],
-                       check=True, capture_output=True)
-    lib = ctypes.CDLL(_SO)
+    if _load_error is not None:
+        raise _load_error
+    try:
+        build()
+        lib = ctypes.CDLL(os.path.join(NATIVE_DIR, SO_NAME))
+        _bind_core(lib)
+    except NativeUnavailable as exc:
+        _load_error = exc
+        raise
+    except (OSError, AttributeError) as exc:
+        _load_error = NativeUnavailable(f"loading {SO_NAME}: {exc}")
+        raise _load_error from exc
+    _lib = lib
+    return lib
+
+
+def _bind_core(lib) -> None:
+    """argtypes/restype of the ingest entry points."""
     lib.gi_create.restype = ctypes.c_void_p
     lib.gi_error_msg.restype = ctypes.c_char_p
     lib.gi_error_msg.argtypes = [ctypes.c_void_p]
@@ -88,8 +175,6 @@ def _load(build: bool = True):
     lib.gi_counters.argtypes = [ctypes.c_void_p,
                                 ctypes.POINTER(ctypes.c_uint64),
                                 ctypes.POINTER(ctypes.c_double)]
-    _lib = lib
-    return lib
 
 
 def call_peaks_native(stat, pval, qval, ends, min_pq, min_auc,
@@ -98,18 +183,18 @@ def call_peaks_native(stat, pval, qval, ends, min_pq, min_auc,
     library is absent.  Returns parallel numpy arrays
     (start, end, auc, summit_pval, summit_qval, summit_pos)."""
     try:
-        lib = _load(build=False)
-    except Exception:
+        lib = _load()
+        if not hasattr(lib, "_peaks_ready"):
+            pf = ctypes.POINTER(ctypes.c_float)
+            p64 = ctypes.POINTER(ctypes.c_int64)
+            lib.gi_call_peaks.restype = ctypes.c_int64
+            lib.gi_call_peaks.argtypes = [
+                pf, pf, pf, p64, ctypes.c_int64, ctypes.c_float,
+                ctypes.c_float, ctypes.c_int64, ctypes.c_int64,
+                p64, p64, pf, pf, pf, p64, ctypes.c_int64]
+            lib._peaks_ready = True
+    except (NativeUnavailable, AttributeError):
         return None
-    if not hasattr(lib, "_peaks_ready"):
-        pf = ctypes.POINTER(ctypes.c_float)
-        p64 = ctypes.POINTER(ctypes.c_int64)
-        lib.gi_call_peaks.restype = ctypes.c_int64
-        lib.gi_call_peaks.argtypes = [
-            pf, pf, pf, p64, ctypes.c_int64, ctypes.c_float,
-            ctypes.c_float, ctypes.c_int64, ctypes.c_int64,
-            p64, p64, pf, pf, pf, p64, ctypes.c_int64]
-        lib._peaks_ready = True
     stat = np.ascontiguousarray(stat, np.float32)
     pval = np.ascontiguousarray(pval, np.float32)
     ends = np.ascontiguousarray(ends, np.int64)
@@ -156,24 +241,24 @@ def call_peaks_log_native(path: str, idx_p: int, idx_q: int,
     Returns (names, sec, start, end, auc, spv, sqv, spos,
     genome_len, peak_bp)."""
     try:
-        lib = _load(build=False)
-    except Exception:
+        lib = _load()
+        if not hasattr(lib, "_log_ready"):
+            pf = ctypes.POINTER(ctypes.c_float)
+            p64 = ctypes.POINTER(ctypes.c_int64)
+            p32 = ctypes.POINTER(ctypes.c_int32)
+            lib.gi_call_peaks_log.restype = ctypes.c_int64
+            lib.gi_call_peaks_log.argtypes = [
+                ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+            lib.gi_log_section_count.restype = ctypes.c_int32
+            lib.gi_log_section_name.restype = ctypes.c_char_p
+            lib.gi_log_section_name.argtypes = [ctypes.c_int32]
+            lib.gi_log_peaks_fetch.argtypes = [
+                p32, p64, p64, pf, pf, pf, p64, p64, p64]
+            lib._log_ready = True
+    except (NativeUnavailable, AttributeError):
         return None
-    if not hasattr(lib, "_log_ready"):
-        pf = ctypes.POINTER(ctypes.c_float)
-        p64 = ctypes.POINTER(ctypes.c_int64)
-        p32 = ctypes.POINTER(ctypes.c_int32)
-        lib.gi_call_peaks_log.restype = ctypes.c_int64
-        lib.gi_call_peaks_log.argtypes = [
-            ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
-        lib.gi_log_section_count.restype = ctypes.c_int32
-        lib.gi_log_section_name.restype = ctypes.c_char_p
-        lib.gi_log_section_name.argtypes = [ctypes.c_int32]
-        lib.gi_log_peaks_fetch.argtypes = [
-            p32, p64, p64, pf, pf, pf, p64, p64, p64]
-        lib._log_ready = True
     got = lib.gi_call_peaks_log(
         path.encode(), idx_p, idx_q, int(use_q),
         np.float32(min_pq), np.float32(min_auc), int(min_len),
@@ -207,26 +292,26 @@ def call_peaks_log_native(path: str, idx_p: int, idx_q: int,
 
 def _rowlog_lib():
     try:
-        lib = _load(build=False)
-    except Exception:
+        lib = _load()
+        if not hasattr(lib, "_rows_ready"):
+            pf = ctypes.POINTER(ctypes.c_float)
+            p64 = ctypes.POINTER(ctypes.c_int64)
+            pu8 = ctypes.POINTER(ctypes.c_uint8)
+            lib.gi_append_text.restype = ctypes.c_int64
+            lib.gi_append_text.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                           ctypes.c_char_p,
+                                           ctypes.c_int64]
+            lib.gi_write_log_rows.restype = ctypes.c_int64
+            lib.gi_write_log_rows.argtypes = [
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+                p64, p64, pf, pf, pf, pf, pu8, ctypes.c_int64]
+            lib.gi_write_pile_rows.restype = ctypes.c_int64
+            lib.gi_write_pile_rows.argtypes = [
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+                p64, p64, pf, pf, pf, ctypes.c_int64]
+            lib._rows_ready = True
+    except (NativeUnavailable, AttributeError):
         return None
-    if not hasattr(lib, "_rows_ready"):
-        pf = ctypes.POINTER(ctypes.c_float)
-        p64 = ctypes.POINTER(ctypes.c_int64)
-        pu8 = ctypes.POINTER(ctypes.c_uint8)
-        lib.gi_append_text.restype = ctypes.c_int64
-        lib.gi_append_text.argtypes = [ctypes.c_char_p, ctypes.c_int,
-                                       ctypes.c_char_p,
-                                       ctypes.c_int64]
-        lib.gi_write_log_rows.restype = ctypes.c_int64
-        lib.gi_write_log_rows.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
-            p64, p64, pf, pf, pf, pf, pu8, ctypes.c_int64]
-        lib.gi_write_pile_rows.restype = ctypes.c_int64
-        lib.gi_write_pile_rows.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
-            p64, p64, pf, pf, pf, ctypes.c_int64]
-        lib._rows_ready = True
     return lib
 
 
@@ -296,18 +381,18 @@ def breakpoints(start, end, count):
     """
     import numpy as np
     try:
-        lib = _load(build=False)
-    except Exception:
+        lib = _load()
+        if not hasattr(lib, "_bp_ready"):
+            p64 = ctypes.POINTER(ctypes.c_int64)
+            p32 = ctypes.POINTER(ctypes.c_int32)
+            pf = ctypes.POINTER(ctypes.c_float)
+            lib.gi_breakpoints_arrays.restype = ctypes.c_int64
+            lib.gi_breakpoints_arrays.argtypes = [p64, p64, p32,
+                                                  ctypes.c_int64]
+            lib.gi_breakpoints_fetch.argtypes = [ctypes.c_void_p, p64, pf]
+            lib._bp_ready = True
+    except (NativeUnavailable, AttributeError):
         return None
-    if not hasattr(lib, "_bp_ready"):
-        p64 = ctypes.POINTER(ctypes.c_int64)
-        p32 = ctypes.POINTER(ctypes.c_int32)
-        pf = ctypes.POINTER(ctypes.c_float)
-        lib.gi_breakpoints_arrays.restype = ctypes.c_int64
-        lib.gi_breakpoints_arrays.argtypes = [p64, p64, p32,
-                                              ctypes.c_int64]
-        lib.gi_breakpoints_fetch.argtypes = [ctypes.c_void_p, p64, pf]
-        lib._bp_ready = True
     s = np.ascontiguousarray(start, np.int64)
     e = np.ascontiguousarray(end, np.int64)
     c = np.ascontiguousarray(count, np.int32)
@@ -328,14 +413,14 @@ def exact_sum_f32(terms) -> Optional[float]:
     """Sequential double += float reduction in C; None if lib absent."""
     import numpy as np
     try:
-        lib = _load(build=False)
-    except Exception:
+        lib = _load()
+        if not hasattr(lib, "_sum_ready"):
+            lib.gi_exact_sum_f32.restype = ctypes.c_double
+            lib.gi_exact_sum_f32.argtypes = [
+                ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+            lib._sum_ready = True
+    except (NativeUnavailable, AttributeError):
         return None
-    if not hasattr(lib, "_sum_ready"):
-        lib.gi_exact_sum_f32.restype = ctypes.c_double
-        lib.gi_exact_sum_f32.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
-        lib._sum_ready = True
     t = np.ascontiguousarray(terms, np.float32)
     return lib.gi_exact_sum_f32(
         t.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(t))
@@ -355,18 +440,18 @@ def pair_index_tab(keys, uk, ends):
     """
     import numpy as np
     try:
-        lib = _load(build=False)
-    except Exception:
+        lib = _load()
+        if not hasattr(lib, "_pit_ready"):
+            pu64 = ctypes.POINTER(ctypes.c_uint64)
+            lib.gi_pair_index_tab.restype = ctypes.c_int
+            lib.gi_pair_index_tab.argtypes = [
+                pu64, ctypes.c_int64, pu64, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_uint32),
+                ctypes.POINTER(ctypes.c_double)]
+            lib._pit_ready = True
+    except (NativeUnavailable, AttributeError):
         return None
-    if not hasattr(lib, "_pit_ready"):
-        pu64 = ctypes.POINTER(ctypes.c_uint64)
-        lib.gi_pair_index_tab.restype = ctypes.c_int
-        lib.gi_pair_index_tab.argtypes = [
-            pu64, ctypes.c_int64, pu64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_uint32),
-            ctypes.POINTER(ctypes.c_double)]
-        lib._pit_ready = True
     k = np.ascontiguousarray(keys, np.uint64)
     u = np.ascontiguousarray(uk, np.uint64)
     e = np.ascontiguousarray(ends, np.int64)
@@ -387,14 +472,14 @@ def log10f_arr_native(x) -> Optional["np.ndarray"]:
     """Elementwise libm log10f in C; None if lib absent."""
     import numpy as np
     try:
-        lib = _load(build=False)
-    except Exception:
+        lib = _load()
+        if not hasattr(lib, "_log10f_ready"):
+            lib.gi_log10f.argtypes = [ctypes.POINTER(ctypes.c_float),
+                                      ctypes.POINTER(ctypes.c_float),
+                                      ctypes.c_int64]
+            lib._log10f_ready = True
+    except (NativeUnavailable, AttributeError):
         return None
-    if not hasattr(lib, "_log_ready"):
-        lib.gi_log10f.argtypes = [ctypes.POINTER(ctypes.c_float),
-                                  ctypes.POINTER(ctypes.c_float),
-                                  ctypes.c_int64]
-        lib._log_ready = True
     xin = np.ascontiguousarray(x, np.float32)
     out = np.empty(xin.shape, np.float32)
     lib.gi_log10f(

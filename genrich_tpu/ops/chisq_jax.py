@@ -4,8 +4,8 @@ Ports of the R-3.5.0-derived pgamma family (engine/chisq.py documents
 the host versions; Genrich.c:403-667) as jnp programs with
 fixed-point lax.while_loops — the per-element series run until every
 lane converges (masked updates preserve each lane's own stopping
-point).  Float64 on CPU matches the exact engine; float32 is the TPU
-fast path.
+point).  Float64 on CPU matches the exact engine; float32 is the
+device fast path.
 
 fisher_combine() assumes replicate p-value arrays share interval
 boundaries — in the tile model all replicates' events go through one

@@ -8,8 +8,7 @@ between (SKIP hard-breaks); connected components become peaks.
 Peak ids are non-decreasing along the interval axis, so every
 per-peak reduction is a *segmented scan* (associative_scan with a
 reset flag) or a plain cumulative scan plus a boundary gather —
-no scatters, which on TPU turns a ~160ms segment-op implementation
-into a few milliseconds of vector passes.
+no scatters.
 """
 
 from __future__ import annotations
@@ -23,6 +22,20 @@ import numpy as np
 
 _BIG = np.int32(2**31 - 1)
 SKIP = np.float32(-1.0)
+
+
+def _segmented_cumsum(x, reset):
+    """Inclusive cumulative sum of ``x`` restarting at every row where
+    ``reset`` is set.
+
+    A peak's AUC read as the difference of two whole-tile cumulative
+    sums carries the rounding error of the tile's running total (a few
+    units once it passes ~1e6 in float32); restarting at each peak
+    keeps the error relative to the peak's own AUC, like the
+    reference's per-peak accumulation."""
+    def op(a, b):
+        return jnp.where(b[1], b[0], a[0] + b[0]), a[1] | b[1]
+    return jax.lax.associative_scan(op, (x, reset))[0]
 
 
 class TilePeaks(NamedTuple):
@@ -75,16 +88,15 @@ def call_peaks(starts, ends, stat, pval, qval, live, min_pq, min_auc,
 
     # Each peak's record lives at the LAST interval of its id segment;
     # top-k compaction selects those boundary rows so every per-peak
-    # gather is K-wide.  Full-width work is limited to scans and one
-    # lexicographic sort — no scatters, no binary searches (both slow
-    # on TPU).
+    # gather is K-wide.  Full-width work is limited to scans and two
+    # lexicographic sorts — no scatters, no binary searches.
     is_last = jnp.concatenate([pid[:-1] != pid[1:],
                                jnp.ones((1,), bool)])
     exists_row = is_last & (pid >= 0)
 
     contrib = jnp.where(sig, lens.astype(jnp.float32)
                         * (stat - min_pq), 0.0)
-    csum = jnp.cumsum(contrib)
+    peak_sum = _segmented_cumsum(contrib, new_peak)
     first_idx = jax.lax.cummax(jnp.where(new_peak, idx, neg))
     lastsig_inc = jax.lax.cummax(jnp.where(sig, idx, neg))
 
@@ -111,9 +123,7 @@ def call_peaks(starts, ends, stat, pval, qval, live, min_pq, min_auc,
     exists = top[::-1] >= 0
 
     fi = jnp.clip(first_idx[rows], 0, m - 1)
-    auc = csum[rows] - jnp.where(fi > 0,
-                                 csum[jnp.clip(fi - 1, 0, m - 1)],
-                                 0.0)
+    auc = peak_sum[rows]
     p_start = starts[fi]
     p_end = ends[jnp.clip(lastsig_inc[rows], 0, m - 1)]
 

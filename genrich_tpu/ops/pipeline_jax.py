@@ -1,6 +1,6 @@
 """Fused device pipeline: fragment events -> peaks, one XLA program.
 
-This is the TPU fast path for the genome-scale numeric phase: a tile's
+This is the device fast path for the genome-scale numeric phase: a tile's
 fragment events (start, end, count-code) go through sort, cumulative
 class sums, coverage reconstruction, the log-normal p-value, and
 vectorized peak calling without leaving the device.  The exact
@@ -97,12 +97,10 @@ def _excluded(starts, excl):
     tile_len); exclusion boundaries must be among the breakpoints for
     exact interval splitting (callers add them as zero-delta points).
 
-    Method choice matters enormously on TPU: the default binary-search
-    ``scan`` lowers to log2(K) serial gather passes over the M-row
-    query vector — measured 143 ms/tile at M=2^21 (12x the whole rest
-    of the pipeline).  For the usual small table a broadcast
-    compare-and-count keeps everything in vector registers (<1 ms);
-    huge -E tables fall back to the one-sort formulation.
+    The default binary-search ``scan`` makes log2(K) serial gather
+    passes over the M-row query vector.  For the usual small table a
+    broadcast compare-and-count does one fused pass instead; huge -E
+    tables fall back to the one-sort formulation.
     """
     flat = excl.reshape(-1)
     method = "compare_all" if flat.shape[0] <= 1024 else "sort"

@@ -2,9 +2,10 @@
 
 Port of calcPval/plnorm/pnorm (Genrich.c:1490-1653; R-3.5.0 rational
 approximations) as a branch-free jnp program.  Dtype-parameterized:
-float64 on CPU reproduces the reference to the ulp; float32 is the TPU
-fast path (validated against the exact engine to ~1e-4 relative in
-tests, ample for a -log10 score whose downstream use is thresholding).
+float64 on CPU reproduces the reference to the ulp; float32 is the
+device fast path (validated against the exact engine to ~1e-4 relative
+in tests, ample for a -log10 score whose downstream use is
+thresholding).
 """
 
 from __future__ import annotations

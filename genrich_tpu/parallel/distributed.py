@@ -2,10 +2,10 @@
 
 The single-controller program in mesh.py scales to multi-host by
 initializing jax.distributed and building the mesh over all global
-devices: the tile axis spans hosts, so intra-host tile traffic rides
-ICI and only the three global collectives (fragment-length psum,
-carry all_gather, and the all_gather of per-shard distinct (p, bp)
-tables for the exact BH — see mesh.py) cross DCN.
+devices: the tile axis spans hosts, and only the three global
+collectives (fragment-length psum, carry all_gather, and the
+all_gather of per-shard distinct (p, bp) tables for the exact BH —
+see mesh.py) cross between hosts.
 
 The CLI reaches this through ``--engine sharded``: ShardedEngine
 calls init_distributed() at startup, which is a no-op without the

@@ -15,8 +15,9 @@ global couplings implemented as collectives:
   - peaks straddling tile boundaries: each tile emits boundary run
     info; the (tiny) cross-boundary merge happens on the host.
 
-On a real pod the "tiles" axis maps across ICI; tests use a virtual
-8-device CPU mesh.
+On several GPUs of one host the "tiles" axis spans the cards (XLA
+carries psum/all_gather over NCCL); tests use a virtual 8-device CPU
+mesh.
 """
 
 from __future__ import annotations
@@ -41,15 +42,14 @@ def make_mesh(n_devices: Optional[int] = None) -> Mesh:
     if n_devices is not None:
         if len(devs) < n_devices:
             # fail loudly: silently validating a smaller mesh (e.g.
-            # one TPU chip when 8 virtual CPU devices were intended)
-            # would make multi-device checks vacuous
+            # one GPU when 8 virtual CPU devices were intended) would
+            # make multi-device checks vacuous
             raise RuntimeError(
                 f"make_mesh({n_devices}): only {len(devs)} "
                 f"device(s) visible on platform "
                 f"'{devs[0].platform}'; set JAX_PLATFORMS=cpu and "
                 f"XLA_FLAGS=--xla_force_host_platform_device_count="
-                f"{n_devices} (and disable any TPU plugin) for a "
-                f"virtual mesh")
+                f"{n_devices} for a virtual mesh")
         devs = devs[:n_devices]
     return Mesh(np.array(devs), (AXIS,))
 

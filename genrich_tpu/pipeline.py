@@ -814,16 +814,23 @@ def run(p: Params, engine=None, perf: Optional[dict] = None
     expt_files = _split_files(p.in_file)
     ctrl_files = _split_files(p.ctrl_file)
 
-    # native C++ ingest: default when the library is available and all
-    # inputs are regular files (stdin needs the Python reader)
+    # native C++ ingest: default when all inputs are regular files
+    # (stdin needs the Python reader); the library is built on first
+    # use, and under auto a library that cannot be built or loaded
+    # falls back to the Python ingest with a warning
     nat = None
     if p.ingest in ("auto", "native") \
             and "-" not in expt_files + ctrl_files:
         from .ingest import native as native_mod
-        if native_mod.available(build=(p.ingest == "native")):
+        try:
             nat = native_mod.NativeIngest(p, xbed)
-        elif p.ingest == "native":
-            raise fatal("native ingest library unavailable", ERRGEN)
+        except native_mod.NativeUnavailable as exc:
+            if p.ingest == "native":
+                raise fatal(f"native ingest library unavailable "
+                            f"({exc})", ERRGEN)
+            warn(f"Warning! {exc}; using the Python ingest\n")
+    if perf is not None:
+        perf["ingest"] = "native" if nat is not None else "python"
 
     if nat is not None:
         bed_stream = None

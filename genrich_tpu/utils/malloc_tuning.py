@@ -12,7 +12,7 @@ allocated once per chromosome and swept in place, Genrich.c:2547-2555.)
 
 Raising the mmap/trim thresholds keeps big blocks on the persistent
 heap, so pages fault in once per process instead of once per
-temporary.  Measured on the 24.4M-record MEMBENCH workload this cuts
+temporary.  Measured on a 24.4M-record exact-engine workload this cuts
 the exact engine's wall time ~30% end-to-end (pileup phase 10.8 s ->
 7.0 s, dedup 9.3 s -> 5.8 s) with byte-identical output.  The native
 ingest library's own arenas (hugepage-backed above a few MB) get the

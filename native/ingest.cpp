@@ -1,4 +1,4 @@
-// genrich-tpu native ingest library.
+// genrich_tpu native ingest library.
 //
 // Host-side byte-level pipeline: SAM/BAM parsing, queryname grouping,
 // pair assembly, AS-based multimapper selection, PCR-duplicate
@@ -1945,7 +1945,7 @@ struct NameMap {
 // non-associative totalLen double — is bit-identical to a
 // sequential parse.  The reference is single-threaded
 // (/root/reference/Genrich.c:4869-4943 readSAM/readBAM); this
-// parallel decomposition is TPU-framework-native design, not a port.
+// parallel decomposition is this framework's own design, not a port.
 
 size_t span_bytes() {                    // span target size
   // GENRICH_INGEST_SPAN overrides (tests use tiny spans to force

@@ -1,7 +1,7 @@
 """The end-to-end bench harness itself (scripts/bench_e2e.py).
 
-Runs the reference-vs-exact comparison at toy scale so the artifact
-generator that produces BENCH_r*.json's "e2e" key can't rot: synth ->
+Runs the reference-vs-exact comparison at toy scale so the harness
+behind bench.py's "e2e" key can't rot: synth ->
 reference -> --engine exact -> byte-parity, all through the real
 harness code path (jax leg excluded; it needs the device).
 """
@@ -29,14 +29,15 @@ def test_bench_e2e_exact_leg(tmp_path, monkeypatch):
 
 
 def test_bench_compact_headline_contract():
-    """bench.py's last stdout line must survive the driver's ~2 KB
-    tail capture (BENCH_r04.json lost its headline to an oversized
-    line) and carry the headline metric."""
+    """bench.py's last stdout line must survive a ~2 KB tail capture
+    (an oversized line loses the headline) and carry the headline
+    metric and the card it was measured on."""
     import json
     import bench
 
     out = {
         "metric": "genome_positions_per_sec",
+        "card": "NVIDIA H100 80GB HBM3, 700.00 W",
         "value": 2.92e9, "unit": "positions/s", "vs_baseline": 648.2,
         "kernel": {"roofline": {"frac_vs_ideal_sort": 1.01}},
         "kernel_production": {"positions_per_sec": 6.1e7,
@@ -51,6 +52,7 @@ def test_bench_compact_headline_contract():
     assert len(line) < 1500, len(line)
     parsed = json.loads(line)
     assert parsed["metric"] == "genome_positions_per_sec"
+    assert parsed["card"] == "NVIDIA H100 80GB HBM3, 700.00 W"
     assert parsed["value"] == 2.92e9
     assert parsed["vs_baseline"] == 648.2
     assert parsed["e2e_exact_ratio"] == 22.8

@@ -112,7 +112,7 @@ def test_merge_vectorized_equals_loop():
 
 def test_merge_dense_10k_tiles():
     """10^4 tiles with dense candidates: equality + a practical bound
-    (the VERDICT r3 scenario where the Python loop becomes the
+    (the scenario where the Python loop becomes the
     sequential tail)."""
     import time
     from genrich_tpu.ops.pipeline_jax import TileResult

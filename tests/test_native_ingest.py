@@ -12,8 +12,7 @@ import oracle  # noqa: E402
 
 from genrich_tpu.ingest import native  # noqa: E402
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native lib unavailable")
+pytestmark = pytest.mark.usefixtures("native_lib")
 
 
 def _both(tmp_path, flags, outputs):

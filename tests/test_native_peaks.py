@@ -11,8 +11,7 @@ from genrich_tpu.ingest import native as native_mod
 F32 = np.float32
 
 
-@pytest.mark.skipif(not native_mod.available(),
-                    reason="native lib unavailable")
+@pytest.mark.usefixtures("native_lib")
 @pytest.mark.parametrize("seed", range(8))
 def test_native_matches_python_caller(seed, monkeypatch):
     rng = np.random.RandomState(seed)

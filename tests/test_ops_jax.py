@@ -168,3 +168,37 @@ def test_excluded_mask_large_table_sort_fallback():
         got2 = np.asarray(_excluded(jnp.asarray(starts),
                                     jnp.asarray(excl_big)))
         assert (got2 == want2).all()
+
+
+def test_peak_auc_exact_after_large_running_total():
+    """A small peak late in a tile whose earlier peaks sum to ~1e7:
+    its device AUC must match the reference's per-peak float32 sum
+    (a difference of whole-tile cumulative sums is off by units)."""
+    from genrich_tpu.engine.peaks import call_peaks_chrom
+    from genrich_tpu.ops.peaks_jax import call_peaks
+
+    n_big = 2000
+    # big peaks: one 1000-bp interval at stat 12 (AUC 1e4), each
+    # followed by a 1000-bp gap interval below the threshold; then a
+    # small peak of AUC 25.25 at the end
+    stat = np.tile(np.array([12.0, 0.5], np.float32), n_big)
+    lens = np.full(2 * n_big, 1000, np.int64)
+    stat = np.concatenate([stat, np.float32([2.0 + 25.25 / 101])])
+    lens = np.concatenate([lens, [101]])
+    ends = np.cumsum(lens)
+    starts = ends - lens
+    min_pq, min_auc = np.float32(2.0), np.float32(20.0)
+    want = call_peaks_chrom(stat, stat, None, ends, min_pq, min_auc,
+                            0, 100)
+    got = jax.jit(call_peaks, static_argnames=("min_len", "max_gap",
+                                               "k_peaks"))(
+        jnp.asarray(starts, jnp.int32), jnp.asarray(ends, jnp.int32),
+        jnp.asarray(stat), jnp.asarray(stat),
+        jnp.full(len(stat), -1.0, jnp.float32),
+        jnp.ones(len(stat), bool), min_pq, min_auc, min_len=0,
+        max_gap=100, k_peaks=4096)
+    ok = np.asarray(got.valid)
+    assert np.asarray(got.start)[ok].tolist() == [p.start for p in want]
+    np.testing.assert_array_equal(np.asarray(got.auc)[ok],
+                                  np.array([p.auc for p in want],
+                                           np.float32))
